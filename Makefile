@@ -6,11 +6,12 @@ ARGS ?=
 
 .PHONY: run_case test bench bench-small bench-scaling smoke
 
-# REQUIRED after any commit touching a Pallas kernel, engine default, or
-# preconditioner: compiles + runs the flagship bench configs on the real
-# backend (CPU pytest cannot catch Mosaic compile failures — see smoke.py)
+# Runs the solver's main path on a GPU and checks it (chip_smoke.py);
+# exits non-zero without a GPU. Run after any change to the engine, a
+# solver default or a preconditioner: CPU pytest cannot see what the GPU
+# compiler or its matmul precision does.
 smoke:
-	$(PYTHON) smoke.py
+	$(PYTHON) chip_smoke.py
 
 run_case:
 	$(PYTHON) -m pynama_tpu.run_case -case $(CASE) $(ARGS)

@@ -1,10 +1,10 @@
-"""pynama_tpu — a TPU-native spectral-element incompressible Navier-Stokes framework.
+"""pynama_tpu — a spectral-element incompressible Navier-Stokes framework in JAX.
 
 Re-implements the capabilities of the reference Pynama solver (vorticity-velocity
 KLE method on Gauss-Lobatto-Legendre spectral elements) as an idiomatic
-JAX/XLA/Pallas framework:
+JAX/XLA framework:
 
-- matrix-free element-operator application on the MXU (batched dense matmuls)
+- matrix-free element-operator application (batched dense matmuls)
   instead of assembled PETSc AIJ sparse matrices,
 - free/constrained dof masks instead of Dirichlet-condensed matrix variants
   (K/Krhs/Kfs/Krhsfs of reference src/matrices/mat_fs.py, mat_ns.py),

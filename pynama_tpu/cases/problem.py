@@ -66,6 +66,15 @@ def compute_vtensv(vel: jax.Array, dim: int) -> jax.Array:
                       vy * vz, vz * vz, vz * vx], axis=1)
 
 
+def _host_device():
+    """The CPU device, or None when the process runs without a CPU
+    backend (then arrays go to the default device)."""
+    try:
+        return jax.devices("cpu")[0]
+    except RuntimeError:
+        return None
+
+
 class Problem:
     """A configured flow case (reference BaseProblem)."""
 
@@ -85,6 +94,17 @@ class Problem:
 
     # ------------------------------------------------------------------ setup
     def setUp(self):
+        """Build mesh, boundary conditions, operators, solvers and the
+        initial state.
+
+        A sharded run (ndev > 1) builds everything in host memory:
+        `ShardedEngine` sends each device only its slab, so no device has
+        to hold the global operator set."""
+        host = int(self.opts.get("ndev", 1)) > 1
+        with jax.default_device(_host_device() if host else None):
+            self._set_up()
+
+    def _set_up(self):
         import time as _time
         phases = {}
         t0 = _time.perf_counter()
@@ -202,11 +222,11 @@ class Problem:
                     n_free, mesh.n_nodes)
 
     def _build_engine(self):
-        """Build the element-local execution engine (the TPU hot path).
+        """Build the element-local execution engine (the production path).
 
         Used for every iterative (CG) solve on ANY mesh; box meshes get the
         plane-exchange DSS, unstructured meshes the fixed-fanin gather DSS
-        with per-element matrices (batched MXU einsum). The dense-direct
+        with per-element matrices (batched einsum). The dense-direct
         method keeps the global-layout path (its Cholesky factor lives on
         the global dof vector). Disable explicitly with engine=False."""
         use = self.opts.get("engine",
@@ -219,15 +239,6 @@ class Problem:
         from pynama_tpu.engine import build_engine
         cfg = get_config()
         eo = self._eo
-        # sharded runs compile-probe fused blocks at the LOCAL slab size
-        # (the global-shape probes would be pure wasted compiles — the
-        # sharded rebuild re-probes at local shapes anyway, cache-shared)
-        ndev = int(self.opts.get("ndev", 1))
-        probe_nelem = None
-        if ndev > 1 and getattr(self.mesh, "is_box", False) \
-                and self.mesh.nelem[0] % ndev == 0:
-            probe_nelem = (self.mesh.nelem[0] // ndev,) \
-                + tuple(self.mesh.nelem[1:])
         self.engine_ops = build_engine(
             self.mesh, self.bc, em_K=self._em.K, em_Rw=self._em.Rw,
             op_curl=eo.Curl, op_srt=eo.SrT, op_div=eo.DivSrT,
@@ -235,19 +246,14 @@ class Problem:
             cg_rtol=self.opts.get("cg_rtol", cfg.cg_rtol),
             cg_atol=self.opts.get("cg_atol", cfg.cg_atol),
             cg_maxiter=self.opts.get("cg_maxiter", cfg.cg_maxiter),
-            # default preconditioner: Jacobi. FDM wins COLD solves (6.3x
-            # fewer iterations, DESIGN.md §4) but loses the warm-started
-            # production chain: BENCH_r01 (jacobi) vs r02 (fdm) measured
-            # 108.9 -> 156.7 ms per two-stage solve at 24^3 ngl=4 — FDM's
-            # ~2x per-iteration cost isn't paid back when the RK stage
-            # starts from the previous velocity. Request pc="fdm"
-            # explicitly for cold/one-shot solves.
+            # Jacobi by default: FDM takes ~5x fewer iterations on cold
+            # solves (docs/DESIGN.md §4) but each iteration costs more, and
+            # the production chain warm-starts every RK stage. Which one
+            # wins in time is open (ROADMAP Speed item 4); request
+            # pc="fdm" explicitly until then.
             pc=self.opts.get("pc", "jacobi"),
             krylov="gmres" if self.solver_method == "gmres" else "cg",
-            fused=self.opts.get("fused"),
-            fused_block=self.opts.get("fused_block"),
-            sumfact=self.opts.get("sumfact"), basis=self.basis,
-            probe_nelem=probe_nelem)
+            sumfact=self.opts.get("sumfact"), basis=self.basis)
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x):

@@ -1,8 +1,8 @@
 """Global framework configuration.
 
-The reference runs everything in PETSc double precision. On TPU, float64 is
-software-emulated, so the runtime dtype is configurable: verification suites run
-float64 (on CPU or TPU-emulated), production/bench paths run float32/bfloat16.
+The reference runs everything in PETSc double precision. The runtime dtype
+follows JAX's x64 mode: verification suites run float64, production/bench
+paths run float32 (with full-FP32 matmuls, see ops/local.py `mm`).
 Setup-time element/basis math is always computed in numpy float64 and cast at
 device-transfer time.
 """

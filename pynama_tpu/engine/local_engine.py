@@ -1,12 +1,13 @@
-"""TPU execution engine: the whole KLE/RHS pipeline in element-local layout.
+"""Execution engine: the whole KLE/RHS pipeline in element-local layout.
 
 This is the production compute path. All state lives in the local vector
 layout of `ops/local.py` — (E, nnode_el*ncomp) — and every hot operation is
-either a well-shaped MXU matmul or an elementwise op on a well-tiled 2D
-array. The engine is a *pure-function + pytree-of-arrays* design: EngineOps
-carries every array the step functions need, and is passed as an ARGUMENT to
-the jitted functions (never captured by closure — embedded large constants
-make XLA compiles pathological and defeat buffer donation).
+either one dense element matmul or an elementwise op on a 2D array with a
+large trailing axis, compiled by XLA from plain jnp/lax. The engine is a
+*pure-function + pytree-of-arrays* design: EngineOps carries every array
+the step functions need, and is passed as an ARGUMENT to the jitted
+functions (never captured by closure — embedded large constants make XLA
+compiles pathological and defeat buffer donation).
 
 Pipeline per RHS evaluation (reference evalRHS, `src/cases/base_problem.py:
 111-137`):
@@ -30,7 +31,6 @@ top).
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Optional
 
 import jax
@@ -141,26 +141,6 @@ class EngineOps:
     #: (ops/local.py dss_overlapped); only meaningful when sharded
     overlap_dss: bool = dataclasses.field(
         default=False, metadata=dict(static=True))
-    #: use the fused matmul+DSS Pallas kernel (ops/fused.py) for every
-    #: operator application on structured meshes — one HBM pass instead
-    #: of ~6 (TPU only; auto-enabled by build_engine on a tpu backend)
-    fused: bool = dataclasses.field(default=False,
-                                    metadata=dict(static=True))
-    #: run the fused kernel in Pallas interpret mode (CPU tests)
-    fused_interpret: bool = dataclasses.field(default=False,
-                                              metadata=dict(static=True))
-    #: compile-probed axis-0 block per operator shape:
-    #: (((nnc_in, nnc_out), block), ...). Empty -> fused_apply's analytic
-    #: default. Populated by build_engine's on-target compile probe
-    #: (ops/fused.py probe_block) so a block that fails Mosaic's
-    #: scoped-VMEM check can never reach a production run.
-    fused_blocks: tuple = dataclasses.field(default=(),
-                                            metadata=dict(static=True))
-    #: user-forced block (-fused-block N): carried so the sharded rebuild
-    #: honors it instead of re-probing (the CLI escape hatch must work
-    #: under -ndev too)
-    fused_block_forced: Optional[int] = dataclasses.field(
-        default=None, metadata=dict(static=True))
 
     @property
     def n_cells(self):
@@ -199,40 +179,10 @@ def _vtensv_pairs(dim: int):
     return [(0, 0), (0, 1), (1, 1), (1, 2), (2, 2), (2, 0)]
 
 
-def _engine_fused_shapes(dim, dim_w, dim_s, nn):
-    """The (nnc_in, nnc_out) pairs every operator application uses:
-    K (v->v), Rw (w->v), curl (v->w), srt (v->s), div (s->v)."""
-    nv, nw, ns = nn * dim, nn * dim_w, nn * dim_s
-    return sorted({(nv, nv), (nw, nv), (nv, nw), (nv, ns), (ns, nv)})
-
-
-def probe_fused_blocks(nelem, ngl, dim, dim_w, dim_s, dtype,
-                       forced_block=None):
-    """Compile-probe every operator shape's fused block on the current
-    backend. Returns the EngineOps.fused_blocks tuple, or None if any
-    shape fails to compile even at block=1 (caller disables fused)."""
-    from pynama_tpu.ops.fused import probe_block
-    nn = int(ngl) ** int(dim)
-    out = []
-    for (ci, co) in _engine_fused_shapes(dim, dim_w, dim_s, nn):
-        if forced_block is not None:
-            out.append(((ci, co), int(forced_block)))
-            continue
-        b = probe_block(tuple(nelem), int(ngl), ci, co // nn, dtype)
-        if b == 0:
-            logging.getLogger("pynama_tpu.engine").warning(
-                "fused kernel does not compile at shape %s->%s even at "
-                "block=1; disabling the fused path", ci, co)
-            return None
-        out.append(((ci, co), b))
-    return tuple(out)
-
-
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                  rho, mu, dtype, cg_rtol=1e-12, cg_atol=0.0,
                  cg_maxiter=2000, pc="jacobi", krylov="cg",
-                 fused=None, fused_block=None, sumfact=None,
-                 basis=None, probe_nelem=None) -> EngineOps:
+                 sumfact=None, basis=None) -> EngineOps:
     """Assemble the EngineOps pytree from setup-time numpy data.
 
     em_*/op_* are the dense element matrices from `elements/kle.py`
@@ -329,27 +279,6 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
 
     tl = lambda a: jnp.asarray(L.to_local(mesh, a), dtype=npdt)
 
-    _plat = jax.devices()[0].platform
-    _fused = (getattr(mesh, "is_box", False)
-              and (bool(fused) if fused is not None else _plat == "tpu"))
-    # On a real TPU backend, every operator shape's block is COMPILE-PROBED
-    # before the engine ships it (ops/fused.py probe_block): a Mosaic
-    # scoped-VMEM OOM at production sizes degrades to a smaller block or
-    # to the unfused jnp path — it can never crash a run (the reference's
-    # assembled MatMult never fails to run, base_problem.py:123-136).
-    _fblocks = ()
-    if _fused and _plat == "tpu":
-        # probe_nelem: a sharded run probes at the LOCAL slab size so the
-        # sharded rebuild's probe hits the cache (a local block divides
-        # the global ne0 too, so the global engine can share the picks)
-        nelem_box = tuple(probe_nelem) if probe_nelem is not None \
-            else tuple(getattr(mesh, "nelem", ()))
-        _fblocks = probe_fused_blocks(nelem_box, mesh.ngl, dim, dim_w,
-                                      dim_s, npdt,
-                                      forced_block=fused_block)
-        if _fblocks is None:
-            _fused, _fblocks = False, ()
-
     # sum-factorized K: default ON for unstructured meshes (the dense
     # per-element KT costs (nn*dim)^2 floats/element of HBM traffic per
     # CG iteration; SumFactK streams ~2.6 KB/element instead)
@@ -389,13 +318,7 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
         cg_rtol=float(cg_rtol), cg_atol=float(cg_atol),
         cg_maxiter=int(cg_maxiter),
         pc=pc if (KinvT is not None or fdm_main is not None) else "jacobi",
-        krylov=krylov,
-        # fused Pallas kernel: on by default on a TPU backend for
-        # structured meshes (one HBM pass per operator application);
-        # explicit fused=True on CPU runs it in interpret mode (tests)
-        fused=_fused, fused_interpret=_fused and _plat != "tpu",
-        fused_blocks=_fblocks,
-        fused_block_forced=None if fused_block is None else int(fused_block))
+        krylov=krylov)
 
 
 # ---------------------------------------------------------------------------
@@ -463,32 +386,7 @@ def _dss(ops: EngineOps, lay, t):
 
 
 def _apply_mat(ops: EngineOps, lay, t, matT):
-    """y = DSS(t @ matT), the one hot operator-application pattern.
-
-    With ops.fused on a structured mesh this runs the one-HBM-pass Pallas
-    kernel (ops/fused.py); when sharded, the kernel's raw axis-0 boundary
-    planes are ppermuted to the neighbor shards and accumulated (the
-    VecScatter part of a distributed MatMult, SURVEY §2.3)."""
-    if ops.fused and lay.structured:
-        from pynama_tpu.ops.fused import fused_apply
-        blk = dict(ops.fused_blocks).get((int(t.shape[1]), lay.nnc))
-        y, bnd = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp,
-                             interpret=ops.fused_interpret, block=blk)
-        if ops.axis_name is not None:
-            nd = jax.lax.axis_size(ops.axis_name)
-            if nd > 1:
-                nnc, plane = lay.nnc, lay.plane_cols
-                ne0 = ops.nelem[0]
-                trail = int(np.prod(ops.nelem[1:]))
-                fwd = [(i, i + 1) for i in range(nd - 1)]
-                bwd = [(i + 1, i) for i in range(nd - 1)]
-                from_left = jax.lax.ppermute(bnd[1], ops.axis_name, fwd)
-                from_right = jax.lax.ppermute(bnd[0], ops.axis_name, bwd)
-                g = y.reshape(ne0, trail, nnc)
-                g = g.at[0, :, :plane].add(from_left)
-                g = g.at[-1, :, nnc - plane:].add(from_right)
-                y = g.reshape(-1, nnc)
-        return y
+    """y = DSS(t @ matT), the one hot operator-application pattern."""
     return _dss(ops, lay, L.emm(t, matT))
 
 

@@ -6,7 +6,7 @@ kernels (`immersed_body.py:398-421`), prescribed sinusoidal motion for the
 dynamic case (`immersed_body.py:266-282`), and force integration from the
 virtual flux (`immersed_body.py:117-130`).
 
-TPU-first differences: bodies are plain coordinate arrays (no 1D DMPlex),
+Differences: bodies are plain coordinate arrays (no 1D DMPlex),
 the dirac kernels are vectorized jnp piecewise expressions (usable inside
 jit for the dynamic rebuild-per-step path), and velocities are (L, dim)
 arrays rather than nested PETSc Vecs.

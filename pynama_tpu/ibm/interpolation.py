@@ -1,6 +1,6 @@
 """Lagrangian<->Eulerian interpolation (the IBM H/S matrices).
 
-TPU-native redesign of the reference's PETSc AIJ machinery
+Redesign of the reference's PETSc AIJ machinery
 (`src/cases/immersed_boundary.py:170-246`): on the structured GLL grid, each
 Lagrangian node's Eulerian support is a FIXED (K^dim) window of grid nodes
 found by per-axis binary search, so H is a static-shape (L, K^dim) index +

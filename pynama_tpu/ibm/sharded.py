@@ -2,7 +2,7 @@
 
 The reference runs IBM cases under ``mpiexec -n N`` like every case
 (`src/cases/immersed_boundary.py` is rank-aware through PETSc's distributed
-H/S AIJ matrices). TPU-native form: the correction is
+H/S AIJ matrices). Here the correction is
 
     H-gather   : (L, dim) = sum over Euler support nodes   (tiny output)
     (L,L) solve: replicated dense Cholesky                  (tiny)

@@ -13,7 +13,6 @@ import logging
 import os
 
 import numpy as np
-import yaml
 
 from pynama_tpu.io.xdmf import XdmfWriter
 
@@ -98,5 +97,6 @@ class Paraviewer:
     def write_yaml(self, name: str, data: dict):
         data = dict(data)
         data["dir"] = self.save_dir
+        import yaml
         with open(self.save_dir + ".yaml", "w") as f:
             yaml.dump(data, f, default_flow_style=False)

@@ -1,6 +1,6 @@
 """Structured box spectral-element mesh.
 
-TPU-native replacement for the reference DMPlex mesh layer
+Replacement for the reference DMPlex mesh layer
 (`src/domain/dmplex.py:380-388` BoxDom + PetscSection/IndicesManager dof
 layout, `src/domain/indices.py`). Because the mesh is a tensor product, global
 node numbering is simply the lexicographic numbering of the global GLL grid

@@ -1,6 +1,6 @@
 """Gmsh .msh reader (ASCII, MSH 2.2 and 4.1) for the unstructured path.
 
-TPU-native replacement for the reference's `DMPlex.createFromFile` gmsh
+Replacement for the reference's `DMPlex.createFromFile` gmsh
 import (`src/domain/dmplex.py:390-394` GmshDom). The parser extracts what
 spectral-element quad/hex meshes need: vertex coordinates, quad (type 3) /
 hex (type 5) corner connectivity, and physical-group-labeled boundary

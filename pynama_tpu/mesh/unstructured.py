@@ -1,6 +1,6 @@
 """Unstructured 2D quad spectral-element mesh (the GmshDom analog).
 
-TPU-native replacement for the reference's unstructured path
+Replacement for the reference's unstructured path
 (`src/domain/dmplex.py:390-394` GmshDom + the PetscSection/IndicesManager
 dof layout of `src/domain/indices.py`): global high-order nodes are numbered
 entity-by-entity — vertices first, then (ngl-2) nodes per edge, then

@@ -2,7 +2,7 @@
 
 The reference delegates its mesh connectivity, dof-graph construction, and
 field IO to the native PETSc C library (SURVEY §2.2). This package holds
-the TPU build's own native layer: `meshkernel.cpp` compiled once into
+this build's own native layer: `meshkernel.cpp` compiled once into
 `_meshkernel.so` (g++, no external deps) and bound through ctypes.
 
 Everything here has a pure-numpy fallback of identical semantics — the

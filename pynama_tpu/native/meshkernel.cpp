@@ -1,4 +1,4 @@
-// TPU-native framework: C++ mesh/graph kernel.
+// pynama_tpu: C++ mesh/graph kernel.
 //
 // Native replacement for the graph-building work the reference delegates to
 // the PETSc C library (DMPlex connectivity/closure: reference

@@ -1,5 +1,5 @@
 """Sum-factorized (matrix-free geometry) application of the element KLE
-operator K — the Deville-Fischer-Mund SEM apply, TPU form.
+operator K — the Deville-Fischer-Mund SEM apply, flat-quadrature form.
 
 On unstructured/hex meshes every element has its own geometry, so the
 engine's dense path stores a per-element K of (nnode·dim)² floats —
@@ -13,11 +13,9 @@ sum-factorized form stores only per-quadrature-point geometry:
 
 ≈ 2.6 KB/element at 3D ngl=4 — 56× less HBM traffic per apply.
 
-TPU mapping (round 4 — the FLAT-QUADRATURE form): the classic per-axis
-tensor passes (contract one length-N axis at a time with moveaxis
-in between) are TPU-hostile — tiny (N,N) contractions on arrays whose
-trailing dims are N and c, plus a relayout per pass; measured 2731 µs
-per apply at 1000 hexes ngl=4 on a v5e. Instead, ALL reference-space
+Shape of the computation: the classic per-axis tensor passes (contract
+one length-N axis at a time with a moveaxis relayout in between) work on
+arrays whose trailing dims are N and c. Instead, ALL reference-space
 gradients come from ONE shared matmul per quadrature family,
 
     g = z_cm @ Dstack            Dstack: (nn, dim·nq), columns r-major,
@@ -26,10 +24,9 @@ gradients come from ONE shared matmul per quadrature family,
 
 with z_cm the component-major (E·c, nn) view of the element vector; the
 dim×dim geometry contractions are unrolled pointwise FMAs over (E, c, nq)
-arrays (full f32 on the VPU — note the previous einsum form contracted
-these at DEFAULT matmul precision, a bf16 truncation hazard on TPU); and
-the transposed scatter Σ_r D_rᵀ s_r is one matmul with Dstackᵀ. Four
-shared MXU matmuls total, zero relayout passes.
+arrays (full f32 elementwise arithmetic, so no matmul precision setting
+applies to them); and the transposed scatter Σ_r D_rᵀ s_r is one matmul
+with Dstackᵀ. Four shared matmuls total, zero relayout passes.
 
 Exactly reproduces `elements/kle.py compute_kle_matrices` (same quadrature
 families, reference `src/domain/elements/spectral.py:96-160`); equivalence

@@ -5,20 +5,22 @@ PETSc partition; here the analog is `jax.distributed` + a global device
 mesh. All framework code is single-program (shard_map) and already global:
 the ONLY multi-host-specific step is initialization, after which
 `ShardedEngine` over `jax.devices()` spans hosts — axis-0 DSS ppermutes
-ride ICI within a slice and DCN across slices, exactly as SURVEY §2.3
+ride NVLink within a host and the network across hosts, as SURVEY §2.3
 prescribes.
 
 Usage (same script on every host):
 
     from pynama_tpu.parallel.multihost import initialize
-    initialize()                       # env-driven (TPU pods: automatic)
+    initialize("host0:1234", num_processes=2, process_id=rank)
     p = Problem(cfg, solver="cg"); p.setUp()
     sk = ShardedEngine(p, ndev=len(jax.devices()))
     ...
 
-On a TPU pod slice `initialize()` needs no arguments (coordinator discovery
-is environment-provided); elsewhere pass coordinator_address/num_processes/
-process_id explicitly.
+On GPU hosts nothing announces the cluster to JAX: every process passes
+the same coordinator_address (host:port of process 0, any free port),
+num_processes, and its own process_id. Called without them,
+`jax.distributed.initialize` fails unless a cluster manager it knows
+(e.g. SLURM) provides them.
 """
 from __future__ import annotations
 

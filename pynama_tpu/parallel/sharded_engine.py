@@ -1,6 +1,6 @@
 """Slab-sharded execution of the element-local engine over a device mesh.
 
-TPU-native replacement for the reference's DMPlex.distribute + PETSc
+Replacement for the reference's DMPlex.distribute + PETSc
 distributed MatMult/VecDot (`src/domain/dmplex.py:21`, SURVEY §2.3): the
 element array is cut into contiguous slabs along mesh axis 0 (elements are
 e0-major, so the split is a pure reshape of every per-element array), and the
@@ -16,13 +16,16 @@ The shard-local EngineOps is the global one with:
   * layout statics rewritten for the local slab nelem,
   * func-side scatter rows localized per shard and padded to equal length
     (out-of-slab rows -> sentinel, dropped by the scatter's OOB mode).
+
+The stacked arrays are built in host memory and sent to the devices with
+the mesh sharding, so each device receives only its own slab: no device
+ever holds the global operator set or the broadcast copies.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -35,7 +38,8 @@ AXIS = "dp"
 
 def build_sharded_ops(ops: E.EngineOps, ndev: int,
                       overlap_dss: bool = False) -> E.EngineOps:
-    """Stack/split the global EngineOps into the (ndev, ...) sharded form.
+    """Stack/split the global EngineOps into the (ndev, ...) sharded form,
+    as host arrays (`ShardedEngine` sends them with the mesh sharding).
 
     Box meshes split into contiguous axis-0 slabs (DSS = ppermute plane
     exchange); unstructured meshes split into contiguous element ranges —
@@ -51,10 +55,12 @@ def build_sharded_ops(ops: E.EngineOps, ndev: int,
     E_loc = int(np.prod(local_nelem))
 
     def split(x):          # per-element data: (E, ...) -> (ndev, E_loc, ...)
+        x = np.asarray(x)
         return x.reshape((ndev, -1) + x.shape[1:])
 
     def bcast(x):          # shared data -> (ndev, ...) stacked copies
-        return jnp.broadcast_to(x[None], (ndev,) + x.shape)
+        x = np.asarray(x)
+        return np.broadcast_to(x[None], (ndev,) + x.shape)
 
     # partition-interface nodes (unstructured): touched by cells of >=2
     # shards; the cross-shard DSS psums ONLY these rows (surface/volume
@@ -71,7 +77,7 @@ def build_sharded_ops(ops: E.EngineOps, ndev: int,
         so = np.repeat(shard_of_cell, nn0)
         np.minimum.at(smin, cn.ravel(), so)
         np.maximum.at(smax, cn.ravel(), so)
-        iface_j = jnp.asarray(np.where(smax > smin)[0].astype(np.int32))
+        iface_j = np.where(smax > smin)[0].astype(np.int32)
 
     def relay(lay):
         if lay.structured:
@@ -89,7 +95,7 @@ def build_sharded_ops(ops: E.EngineOps, ndev: int,
             incs[d][m] = (inc[m] - lo).astype(np.int32)
         return dataclasses.replace(
             lay, inv_mult=split(lay.inv_mult),
-            incidence=jnp.asarray(incs),
+            incidence=incs,
             cell_nodes=split(lay.cell_nodes),
             iface=bcast(iface_j),
             nelem=(E_loc,))
@@ -134,24 +140,10 @@ def build_sharded_ops(ops: E.EngineOps, ndev: int,
             rws[d, :k] = local_rows[m]
             cds[d, :k] = coords[m]
         fs_out.append(dataclasses.replace(
-            fs, rows=jnp.asarray(rws), coords=jnp.asarray(cds)))
-
-    # fused-kernel blocks are keyed to the axis-0 extent: re-probe at the
-    # LOCAL slab size (cached per shape, so this is at most one compile
-    # per new shape); in interpret mode the analytic default suffices
-    fused = ops.fused
-    fblocks = ()
-    if ops.fused and structured and not ops.fused_interpret:
-        fblocks = E.probe_fused_blocks(
-            local_nelem, ops.ngl, ops.dim, ops.dim_w, ops.dim_s,
-            ops.free_main.dtype,
-            forced_block=ops.fused_block_forced)
-        if fblocks is None:
-            fused, fblocks = False, ()
+            fs, rows=rws, coords=cds))
 
     return dataclasses.replace(
         ops,
-        fused=fused, fused_blocks=fblocks,
         KT=mat(ops.KT), RwT=mat(ops.RwT), curlT=mat(ops.curlT),
         srtT=mat(ops.srtT), divT=mat(ops.divT),
         lay_v=relay(ops.lay_v), lay_w=relay(ops.lay_w),
@@ -168,9 +160,7 @@ def build_sharded_ops(ops: E.EngineOps, ndev: int,
         KinvT=None if ops.KinvT is None else bcast(ops.KinvT),
         fdm_main=fdm_main_s, fdm_fs=fdm_fs_s, pc=pc, sumfact=sf_s,
         P_v2cm=bcast(ops.P_v2cm), P_cm2s=bcast(ops.P_cm2s),
-        rho=jnp.broadcast_to(ops.rho, (ndev,)),
-        mu=jnp.broadcast_to(ops.mu, (ndev,)),
-        nu=jnp.broadcast_to(ops.nu, (ndev,)),
+        rho=bcast(ops.rho), mu=bcast(ops.mu), nu=bcast(ops.nu),
         nelem=local_nelem, axis_name=AXIS, overlap_dss=overlap_dss)
 
 
@@ -184,8 +174,10 @@ class ShardedEngine:
         self.ndev = ndev
         devices = devices if devices is not None else jax.devices()[:ndev]
         self.mesh = Mesh(np.array(devices), (AXIS,))
-        self.ops_s = build_sharded_ops(problem.engine_ops, ndev,
-                                       overlap_dss=overlap_dss)
+        sh = NamedSharding(self.mesh, P(AXIS))
+        self.ops_s = jax.device_put(
+            build_sharded_ops(problem.engine_ops, ndev,
+                              overlap_dss=overlap_dss), sh)
         self._spec_ops = jax.tree.map(lambda _: P(AXIS), self.ops_s)
         self._spec_state = P(AXIS)
 
@@ -193,13 +185,13 @@ class ShardedEngine:
     def shard_state(self, vort_g, vel_g):
         """Global nodal fields -> sharded local-layout device arrays."""
         p = self.p
-        vort_l = np.asarray(p.to_local(vort_g)).reshape(
+        dt = p.dtype
+        vort_l = L.to_local(p.mesh, np.asarray(vort_g)).astype(dt).reshape(
             (self.ndev, -1) + (p.engine_ops.lay_w.nnc,))
-        vel_l = np.asarray(p.to_local(vel_g)).reshape(
+        vel_l = L.to_local(p.mesh, np.asarray(vel_g)).astype(dt).reshape(
             (self.ndev, -1) + (p.engine_ops.lay_v.nnc,))
         sh = NamedSharding(self.mesh, P(AXIS))
-        return (jax.device_put(jnp.asarray(vort_l), sh),
-                jax.device_put(jnp.asarray(vel_l), sh))
+        return jax.device_put(vort_l, sh), jax.device_put(vel_l, sh)
 
     def gather_state(self, t_s, ncomp):
         flat = np.asarray(t_s).reshape(-1, np.asarray(t_s).shape[-1])
@@ -268,7 +260,7 @@ class ShardedEngine:
         receives the SHARDED arrays — gather with `gather_state` only when
         actually saving. Returns (t, vort_s, vel_s, accepted_steps).
 
-        This is the TPU-native form of the reference's headline parallel
+        This is the form of the reference's headline parallel
         capability `mpiexec -n N python src/run_case.py -case ...`
         (reference makefile:2-7)."""
         if dt0 is None:

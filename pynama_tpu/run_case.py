@@ -22,7 +22,6 @@ import os
 import sys
 
 import numpy as np
-import yaml
 
 logger = logging.getLogger("pynama_tpu.run_case")
 
@@ -30,6 +29,7 @@ CASE_DIR = os.path.join(os.path.dirname(__file__), "cases", "yaml")
 
 
 def load_case(name: str) -> dict:
+    import yaml
     for cand in (name, f"{name}.yaml",
                  os.path.join(CASE_DIR, f"{name}.yaml"),
                  os.path.join(CASE_DIR, name)):
@@ -166,6 +166,7 @@ def generate_chart_kle(cfg: dict, args):
 
 
 def _dump_yaml(path, data):
+    import yaml
     with open(path, "w") as f:
         yaml.dump(data, f)
     logger.info("wrote %s", path)
@@ -183,7 +184,7 @@ def _overrides(args, skip_ngl=False):
     if get("solver"):
         kw["solver"] = args.solver
     # solver tuning (the reference forwards any -ksp_* flag into
-    # KSP.setFromOptions, kle_solver.py:62; these are the TPU analogs)
+    # KSP.setFromOptions, kle_solver.py:62; these are its analogs)
     if get("cg_rtol") is not None:
         kw["cg_rtol"] = args.cg_rtol
     if get("cg_atol") is not None:
@@ -195,10 +196,6 @@ def _overrides(args, skip_ngl=False):
     if get("ndev"):
         kw["ndev"] = args.ndev
     # engine toggles (Options-DB parity: every solver knob CLI-reachable)
-    if get("fused") is not None:
-        kw["fused"] = {"on": True, "off": False}[args.fused]
-    if get("fused_block") is not None:
-        kw["fused_block"] = args.fused_block
     if get("sumfact") is not None:
         kw["sumfact"] = {"on": True, "off": False}[args.sumfact]
     return kw
@@ -229,14 +226,6 @@ def main(argv=None):
                     help="KLE Krylov max iterations")
     ap.add_argument("-pc", default=None, choices=["jacobi", "schwarz", "fdm"],
                     help="KLE preconditioner")
-    ap.add_argument("-fused", default=None, choices=["on", "off"],
-                    help="fused matmul+DSS Pallas kernel on box meshes "
-                         "(default: on when running on TPU, with a "
-                         "compile-probed block size)")
-    ap.add_argument("-fused-block", dest="fused_block", type=int,
-                    default=None,
-                    help="force the fused kernel's axis-0 block "
-                         "(skips the compile probe)")
     ap.add_argument("-sumfact", default=None, choices=["on", "off"],
                     help="sum-factorized K on unstructured meshes "
                          "(default: on)")
@@ -266,6 +255,8 @@ def main(argv=None):
     logging.basicConfig(
         level=getattr(logging, args.log.upper(), logging.INFO),
         format="%(levelname)s %(name)s: %(message)s")
+    from pynama_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     cfg = load_case(args.case)
 
     mode = {

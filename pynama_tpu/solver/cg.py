@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients under `lax.while_loop`.
 
-TPU-native replacement for the reference's KSP solve (`src/solver/
+Replacement for the reference's KSP solve (`src/solver/
 kle_solver.py:49-64`, GMRES+LU ~= direct). The penalized KLE operator K is
 symmetric positive definite on the free subspace, so CG is the natural Krylov
 method. The inner product is pluggable: the single-device path uses a plain

@@ -21,7 +21,7 @@ and with the generalized eigenbasis A_d Q_d = B_d Q_d Λ_d (Q_dᵀB_dQ_d = I)
 
     S⁻¹ = (Q_0⊗Q_1⊗Q_2) · diag(λ_i+λ_j+λ_k)⁻¹ · (Q_0ᵀ⊗Q_1ᵀ⊗Q_2ᵀ).
 
-One application = 2·dim small dense matmuls over the global grid — pure MXU
+One application = 2·dim small dense matmuls over the global grid — pure matmul
 work, comparable in cost to a single element-local K application. Dirichlet
 condensation stays exact whenever the per-component free mask is a tensor
 product of per-axis 1D masks (true for every whole-wall BC configuration:
@@ -291,7 +291,7 @@ class SlabFDM:
     ownership-weighted partial projection `Q0_ownᵀ · z_slab` psum-reduced to
     the full mode grid, while the axis-0 synthesis needs NO communication
     (each shard computes its own slab rows `Q0_syn · ẑ` from the replicated
-    mode tensor). One psum of the mode grid per application — the ICI analog
+    mode tensor). One psum of the mode grid per application — the analog
     of the all-reduce inside a distributed direct solve. (Headroom: a
     reduce-scatter over the mode axis would cut the replicated-mode memory
     at very large grids; not needed at current sizes.)"""
@@ -314,7 +314,8 @@ class SlabFDM:
 
 def shard_fdm(f: FDMOps, ndev: int) -> SlabFDM:
     """Split FDMOps into the (ndev, ...)-stacked slab form (axis-0 slabs,
-    matching `parallel/sharded_engine.build_sharded_ops`)."""
+    matching `parallel/sharded_engine.build_sharded_ops`), as host
+    arrays."""
     npts = f.npts
     c = f.ncomp
     n0 = npts[0]
@@ -334,14 +335,16 @@ def shard_fdm(f: FDMOps, ndev: int) -> SlabFDM:
             own[d, :, -1, :] = 0.0                 # upper nbr owns the plane
         jl[d] = jleft[rows].reshape(-1, c)
     dt = f.dinv.dtype
-    bcast = lambda x: jnp.broadcast_to(x[None], (ndev,) + x.shape)
+    bcast = lambda x: np.broadcast_to(np.asarray(x)[None],
+                                      (ndev,) + x.shape)
     return SlabFDM(
-        Q0_own=jnp.asarray(own, dtype=dt),
-        Q0_syn=jnp.asarray(syn, dtype=dt),
+        Q0_own=np.asarray(own, dtype=dt),
+        Q0_syn=np.asarray(syn, dtype=dt),
         Qs_rest=tuple(bcast(q) for q in f.Qs[1:]),
-        dinv_grid=bcast(jnp.moveaxis(f.dinv, -1, 0).reshape((c,) + npts)),
+        dinv_grid=bcast(np.moveaxis(np.asarray(f.dinv), -1, 0)
+                        .reshape((c,) + npts)),
         binv_grid=None if f.binv is None else bcast(f.binv),
-        jleft=jnp.asarray(jl, dtype=dt),
+        jleft=np.asarray(jl, dtype=dt),
         ncomp=c)
 
 
@@ -379,8 +382,7 @@ def _local_to_grid(r_loc: jax.Array, nelem: tuple, N: int,
                    c: int) -> jax.Array:
     """(E, nn*c) consistent canonical local vector -> global grid
     (np0[, np1, np2], c), all static slices/reshapes (the gather-free
-    structured-mesh conversion; assembled-CSR gathers measured 4-7x the
-    cost of the whole transform chain on TPU)."""
+    structured-mesh conversion)."""
     dim = len(nelem)
     g = r_loc.reshape(tuple(nelem) + (N,) * dim + (c,))
     perm = []
@@ -409,9 +411,9 @@ def _grid_to_local(z: jax.Array, nelem: tuple, N: int, c: int) -> jax.Array:
 def _transform_chain(Qs, z, transpose_q: bool):
     """Apply the per-axis transforms to z (c, np0[, np1, np2]).
 
-    Each step: batched matmul contracting the axis at position 1 (large
-    trailing flat axis = full MXU tiles — a trailing component axis of
-    size 2-3 pads the TPU lane dim to 128, measured ~7x slower), then roll
+    Each step: batched matmul contracting the axis at position 1 (keeping
+    a large trailing flat axis rather than a component axis of size 2-3),
+    then roll
     that axis to the back. After `dim` rolls the layout returns to
     (c, np0[, np1, np2]) with every axis transformed."""
     dim = z.ndim - 1
@@ -460,7 +462,7 @@ def fdm_apply(f: FDMOps, r_loc: jax.Array, nelem: tuple | None = None,
 def _contract_axis(Q: jax.Array, z: jax.Array, pos: int,
                    transpose_q: bool) -> jax.Array:
     """Contract z's axis `pos` with Q (c, n, n); z leads with the component
-    axis. Moveaxis keeps a large trailing flat axis for full MXU tiles."""
+    axis. Moveaxis keeps a large trailing flat axis."""
     z = jnp.moveaxis(z, pos, 1)
     Qm = jnp.swapaxes(Q, 1, 2) if transpose_q else Q
     sh = z.shape

@@ -1,16 +1,16 @@
 """Sparse matrix containers as JAX pytrees.
 
-The TPU-native counterpart of PETSc's MatAIJ zoo (reference consumes
+The counterpart of PETSc's MatAIJ zoo (reference consumes
 createAIJ/setValues/assemble/mult, SURVEY §2.2). Four formats:
 
   COO — assembly interchange (duplicate-friendly, segment-sum reducible)
   CSR — classic compressed rows (interchange + host-side ops)
-  ELL — padded fixed-width rows: THE TPU execution format. Static shapes,
+  ELL — padded fixed-width rows: the execution format. Static shapes,
         no indptr-dependent control flow; SpMV is a dense gather + multiply
-        + row reduction, which XLA/Pallas vectorize cleanly. Spectral-element
+        + row reduction, which XLA vectorizes cleanly. Spectral-element
         stencils have near-uniform row widths, so padding waste is small.
   BSR — block CSR with dim x dim dense blocks (interleaved velocity dofs);
-        blocks feed the MXU.
+        blocks go through dense dots.
 """
 from __future__ import annotations
 

@@ -1,16 +1,12 @@
 """Sparse matrix-vector products (the PETSc MatMult replacement).
 
-ELL is the TPU execution format: y[r] = sum_k data[r,k] * x[cols[r,k]] is a
+ELL is the execution format: y[r] = sum_k data[r,k] * x[cols[r,k]] is a
 dense gather + fused multiply + small-axis reduction with fully static
 shapes. CSR/COO paths use segment_sum (XLA scatter-add); BSR feeds dim-sized
 blocks through dense dots.
 
-On why there is NO hand-written Pallas kernel here: Pallas-TPU exposes
-dynamic slices but no vectorized gather (pallas guide, "Dynamic Indexing"),
-so an ELL kernel would have to emulate x[cols] with one-hot matmuls or
-scalar loops — strictly worse than the XLA gather these jnp formulations
-lower to. The production hot path avoids runtime gathers entirely anyway
-(element-local engine: dense MXU matmul + static plane adds,
+There is no hand-written kernel here: the production hot path does not
+use these formats (element-local engine: dense matmul + static plane adds,
 `engine/local_engine.py`); these assembled-format SpMVs serve the sparse
 library surface (IBM normal systems, external users, differential tests).
 """

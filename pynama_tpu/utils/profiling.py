@@ -1,7 +1,7 @@
 """Profiling helpers: jax device traces + per-phase wall timers.
 
 The reference's observability is a datetime Timer plus commented-out
-line_profiler hooks (SURVEY §5); the TPU-native equivalents are XLA device
+line_profiler hooks (SURVEY §5); the equivalents here are XLA device
 traces (viewable in TensorBoard / Perfetto) and phase timers that survive
 jit (timing only dispatch boundaries).
 """
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import subprocess
 import time
 
 logger = logging.getLogger("pynama_tpu.profiling")
@@ -24,6 +25,21 @@ def device_trace(log_dir: str):
     finally:
         jax.profiler.stop_trace()
         logger.info("device trace written to %s", log_dir)
+
+
+def card_info() -> str | None:
+    """The GPU's name and power limit as `nvidia-smi` reports them (one
+    line per card), or None where there is no nvidia-smi. A card set below
+    its maximum power runs slower under load, so every time measured on it
+    is reported beside this line."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return r.stdout.strip()
 
 
 class PhaseTimer:

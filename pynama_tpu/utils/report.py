@@ -1,7 +1,7 @@
 """Operator memory / size reporting (the printMatsInfo analog,
 reference `src/matrices/mat_fs.py:122-129`).
 
-The reference reports assembled-AIJ nnz and bytes; the TPU build is
+The reference reports assembled-AIJ nnz and bytes; this build is
 matrix-free, so the honest analog is the device bytes of each operator
 pytree plus the *effective* assembled nnz its application replaces.
 """

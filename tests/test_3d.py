@@ -4,7 +4,7 @@ run, and the two-stage no-slip solve on a 3D cavity.
 The reference exercises 3D through its custom-func cases
 (`src/functions/taylor_green3d.py`, `src/cases/taylor-green3d.yaml`) and the
 Spectral 3D element path (`src/domain/elements/spectral.py:67-90,312-355`);
-these tests assert the same behaviors on the TPU-native build.
+these tests assert the same behaviors on this build.
 """
 import numpy as np
 import pytest

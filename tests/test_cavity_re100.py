@@ -5,8 +5,8 @@ uniform-flow 1e-12 and Taylor-Green 1e-5 KLE checks, src/tests/
 test_solver.py:25,37) by pinning the flagship PRODUCTION case:
 
 1. The committed fine-mesh steady profile artifact
-   (exp/cavity_re100_fine.json, 16x16 ngl=4 marched to steady on the
-   TPU) must match the classic Ghia-Ghia-Shin (1982, 129^2) benchmark
+   (exp/cavity_re100_fine.json, the reference's cavity-2d resolution,
+   50x50 ngl=3, marched to steady) must match the classic Ghia-Ghia-Shin (1982, 129^2) benchmark
    extrema for Re=100 within a few percent.
 2. Self-convergence: a coarse mesh (6x6 ngl=4) marched to t=10 here (f64
    CPU) must reproduce the fine artifact's t=10 centerline profiles

@@ -103,33 +103,28 @@ def test_fast_io_production_run(tmp_path):
         os.chdir(cwd)
 
 
-def test_fused_flags(tmp_path):
-    """-fused/-fused-block/-sumfact reach the engine (VERDICT r3 weak #4:
-    the only mitigation for a fused-kernel failure must not require
-    editing source)."""
+def test_engine_flags(tmp_path):
+    """-sumfact and the solver knobs reach the engine through the CLI's
+    override mapping."""
     from pynama_tpu import run_case as rc
     cfg = rc.load_case("cavity-2d")
 
     # go through _overrides directly (a production run is exercised by
     # test_ndev_production_run; here we assert the kwarg wiring)
     import argparse
-    ns = argparse.Namespace(fused="off", fused_block=None, sumfact=None,
-                            ngl=3, nelem=[4, 4], solver="cg",
-                            cg_rtol=None, cg_atol=None, maxiter=None,
-                            pc=None, ndev=None)
+    ns = argparse.Namespace(sumfact="off", ngl=3, nelem=[4, 4],
+                            solver="cg", cg_rtol=1e-9, cg_atol=None,
+                            maxiter=321, pc="jacobi", ndev=None)
     kw = rc._overrides(ns)
-    assert kw["fused"] is False
+    assert kw["sumfact"] is False
+    assert kw["cg_rtol"] == 1e-9 and kw["cg_maxiter"] == 321
 
     p = rc.make_problem(cfg, **kw)
     p.setUp()
-    assert p.engine_ops is not None and p.engine_ops.fused is False
+    ops = p.engine_ops
+    assert ops is not None and ops.sumfact is None
+    assert ops.cg_rtol == 1e-9 and ops.cg_maxiter == 321
+    assert ops.pc == "jacobi"
 
-    ns.fused, ns.fused_block = "on", 2
-    kw = rc._overrides(ns)
-    assert kw["fused"] is True and kw["fused_block"] == 2
-    p2 = rc.make_problem(cfg, **kw)
-    p2.setUp()
-    # on CPU the fused path runs in interpret mode; the forced block is
-    # recorded only on a real TPU backend (the probe is skipped there),
-    # so just assert the engine accepted the kwargs
-    assert p2.engine_ops.fused is True
+    ns.sumfact = "on"
+    assert rc._overrides(ns)["sumfact"] is True

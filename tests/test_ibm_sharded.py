@@ -18,7 +18,7 @@ from pynama_tpu.ibm.bodies import Circle, Sphere
 from pynama_tpu.ibm.sharded import build_ibm_shard_tables, correction_local
 from pynama_tpu.mesh import BoxMesh
 
-from test_ibm import ibm_config
+from tests.test_ibm import ibm_config
 
 
 def test_normal_core_spgemm_matches_dense():

@@ -56,3 +56,32 @@ def test_local_dot_and_diag():
     diag_ref = np.asarray(assembled_diagonal(eop))
     diag_loc = L.to_global(mesh, np.asarray(L.local_diagonal(op)), d)
     np.testing.assert_allclose(diag_loc, diag_ref, rtol=1e-11, atol=1e-11)
+
+
+@pytest.mark.parametrize("nelem,ngl,cin,cout", [
+    ((3, 4, 5), 4, 3, 3),
+    ((3, 4, 5), 4, 3, 6),     # strain-family output (cout != cin)
+    ((2, 3), 5, 2, 3),        # 2D
+    ((2, 3), 3, 2, 1),        # 2D scalar vorticity
+    ((1, 2, 2), 3, 3, 1),     # degenerate axis-0 extent
+    ((4, 1, 2), 4, 3, 3),     # degenerate in-slice extent
+    ((2, 2, 2), 2, 3, 3),     # ngl=2 (planes cover every column)
+])
+def test_dss_matches_scatter_add(nelem, ngl, cin, cout):
+    """The engine's operator application DSS(t @ matT) against a numpy
+    scatter-add over cell_nodes, gathered back to every slot."""
+    dim = len(nelem)
+    mesh = BoxMesh.create(ngl, list(nelem), [0] * dim, [1] * dim)
+    lay = L.make_local_layout(mesh, cout, dtype=np.float64)
+    nn = ngl ** dim
+    rng = np.random.default_rng(7)
+    t = rng.standard_normal((mesh.n_cells, nn * cin))
+    matT = rng.standard_normal((nn * cin, nn * cout))
+    got = np.asarray(L.dss(lay, L.emm(t, matT)))
+
+    z = (t @ matT).reshape(mesh.n_cells, nn, cout)
+    acc = np.zeros((mesh.n_nodes, cout))
+    np.add.at(acc, np.asarray(mesh.cell_nodes), z)
+    want = acc[np.asarray(mesh.cell_nodes)].reshape(got.shape)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())

@@ -68,7 +68,7 @@ def test_two_process_rhs_matches_single():
     from pynama_tpu.cases import Problem
     from pynama_tpu.engine import rhs_local
     import jax
-    from multihost_worker import cavity_config, random_state
+    from tests.multihost_worker import cavity_config, random_state
 
     p1 = Problem(cavity_config(), solver="cg", cg_rtol=1e-12,
                  cg_maxiter=3000)
@@ -100,7 +100,7 @@ def test_two_process_transient_matches_single():
     import jax
     jax.config.update("jax_enable_x64", True)
     from pynama_tpu.cases import Problem
-    from multihost_worker import cavity_config
+    from tests.multihost_worker import cavity_config
 
     cfg = cavity_config()
     cfg["time-solver"]["max-steps"] = 3

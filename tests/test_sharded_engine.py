@@ -1,6 +1,6 @@
 """Sharded local-engine vs single-device engine equivalence (8 virtual CPU
-devices, the cheap analog of a TPU slice — conftest forces the device
-count)."""
+devices, the cheap analog of a multi-card host — conftest forces the
+device count)."""
 import jax
 import numpy as np
 import pytest
